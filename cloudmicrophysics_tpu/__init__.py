@@ -1,11 +1,12 @@
-"""cloudmicrophysics_tpu — a TPU-native cloud microphysics framework.
+"""cloudmicrophysics_tpu — a JAX cloud microphysics framework.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 CliMA/CloudMicrophysics.jl: bulk microphysics schemes (0/1/2-moment and P3
 predicted-particle-properties), ice nucleation, aerosol activation
 (ARG2000), non-equilibrium condensation, cloud diagnostics, and the 0-D
 parcel/box driver models — built as fused elementwise kernels over
-HBM-resident ``(ncol, nlev)`` column arrays, sharded across TPU meshes.
+device-resident ``(ncol, nlev)`` column arrays, sharded across device
+meshes.
 
 Layout (mirrors SURVEY.md layers):
 
@@ -15,7 +16,7 @@ Layout (mirrors SURVEY.md layers):
                     scheme modules (0M/1M/2M/NonEq/IceNucleation/P3/aerosol)
 * ``models/``     — L5/L6 fused tendency API, column model, parcel/box drivers
 * ``parallel/``   — device-mesh sharding (column data parallelism)
-* ``kernels/``    — Pallas TPU kernels for the fused hot paths
+* ``kernels/``    — Pallas kernels (GPU Triton route) for the column steps
 """
 
 __version__ = "0.1.0"

@@ -1,11 +1,9 @@
-"""Pallas TPU kernels for the hot compute paths.
+"""Pallas kernels (GPU Triton route) for the column steps.
 
 The physics itself lives in ``ops``/``models`` as pure jnp functions; a
-Pallas kernel here re-invokes the same functions on VMEM-resident blocks,
-so numerics are identical by construction and the kernel layer only
-controls memory movement (block shape, grid, HBM<->VMEM pipelining).
+kernel here applies the same functions to one tile of columns, so the
+kernel layer only controls the launch shape and memory movement.
 """
 
-from .column1m import step_column_1m_pallas
-from .column2m import step_column_2m_pallas, step_column_2m_pallas_packed
-from .column_p3 import step_column_p3_pallas
+from .column1m import step_column_1m_triton
+from .column2m import step_column_2m_triton

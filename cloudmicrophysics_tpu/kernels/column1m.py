@@ -1,156 +1,41 @@
-"""Fused 1M column step as a single Pallas TPU kernel.
+"""Fused 1M column step as a Pallas kernel for the GPU's Triton route.
 
-The XLA-jitted :func:`cloudmicrophysics_tpu.models.column.step_column_1m`
-already fuses well (it is HBM-bandwidth-bound); this kernel makes the
-blocking explicit — each grid step streams a ``(block_cols, nlev)`` tile
-of all seven prognostic fields through VMEM and applies the *same* jnp
-physics functions to the tile, writing the stepped state back. Columns
-are independent except for the vertical sedimentation shift, which stays
-inside the tile (the level axis is never split).
-
-Useful as (a) the template for hand-fused kernels where XLA's fusion
-breaks down, and (b) a pinned lower bound on achievable fusion: one HBM
-read + one write per field per step.
+Each program steps a ``(block_cols, nlev)`` tile of all seven prognostic
+fields with the *same* jnp physics as
+:func:`cloudmicrophysics_tpu.models.column.step_column_1m`. The Triton
+route cannot shift a tile along the level axis, so the sedimentation
+inflow of level k is computed from a second load of the tile offset by one
+level (masked at the top level), which recomputes the fall speeds of the
+level above.
 """
 
 from __future__ import annotations
 
 import functools
 
-import jax
-import jax.numpy as jnp
-from jax.experimental import pallas as pl
+from ..models.column import ColumnState, _psd_1m, _sed_fluxes_1m, _step_1m
+from ._column import column_step_call
 
-from ..models.column import ColumnState, step_column_1m
-
-__all__ = ["step_column_1m_pallas"]
-
-_FIELDS = ColumnState._fields  # (rho, T, q_tot, q_lcl, q_icl, q_rai, q_sno)
+__all__ = ["step_column_1m_triton"]
 
 
-def _kernel(*refs, mp, tps, tv, dt, dz, mode, nsub, sediment_cloud,
-            has_affine):
-    if has_affine:
-        scale_ref, bias_ref = refs[:2]
-        refs = refs[2:]
-    ins, outs = refs[: len(_FIELDS)], refs[len(_FIELDS):]
-    state = ColumnState(*(r[...] for r in ins))
-    if has_affine:
-        state = state._replace(
-            q_tot=state.q_tot * scale_ref[0, 0] + bias_ref[0, 0])
-    new = step_column_1m(state, mp, tps, tv, dt, dz, mode=mode, nsub=nsub,
-                         sediment_cloud=sediment_cloud)
-    for ref, val in zip(outs, new):
-        ref[...] = val
-
-
-def step_column_1m_pallas(state: ColumnState, mp, tps, tv, dt, dz,
+def step_column_1m_triton(state: ColumnState, mp, tps, tv, dt, dz,
                           mode: str = "instantaneous", nsub: int = 1,
                           sediment_cloud: bool = True,
-                          block_cols: int = 256,
-                          interpret: bool = False,
-                          q_tot_affine=None) -> ColumnState:
-    """Pallas-blocked version of ``step_column_1m`` (same signature +
-    ``block_cols``/``interpret``). ``ncol`` must be a multiple of
-    ``block_cols``; pass ``interpret=True`` to run on CPU for testing.
+                          interpret: bool = False) -> ColumnState:
+    """Triton-route version of ``step_column_1m`` (same signature, plus
+    ``interpret`` for CPU tests). ``nlev`` must be a power of two.
 
-    ``q_tot_affine``: optional ``(scale, bias)`` scalars applied to
-    ``q_tot`` on load inside the kernel (``q_tot*scale + bias``). Lets a
-    driver perturb the state between steps without an extra HBM pass
-    over the field (used by bench.py to keep iteration inputs bit-fresh).
-    """
-    ncol, nlev = state.rho.shape
-    if ncol % block_cols:
-        raise ValueError(
-            f"ncol={ncol} not a multiple of block_cols={block_cols}")
-    dtype = state.rho.dtype
-    spec = pl.BlockSpec((block_cols, nlev), lambda i: (i, 0))
+    Measured on an H100 at 524,288 x 128 f32: 4.44-4.56 ms per step
+    against 9.57-9.65 ms for XLA's fusion of ``step_column_1m`` (400 W
+    power limit; PERF.md)."""
+    step = functools.partial(_step_1m, mp=mp, tps=tps, tv=tv, dt=dt, dz=dz,
+                             mode=mode, nsub=nsub,
+                             sediment_cloud=sediment_cloud)
 
-    kernel = functools.partial(
-        _kernel, mp=mp, tps=tps, tv=tv, dt=dt, dz=dz, mode=mode, nsub=nsub,
-        sediment_cloud=sediment_cloud, has_affine=q_tot_affine is not None)
-    in_specs = [spec] * len(_FIELDS)
-    operands = list(state)
-    if q_tot_affine is not None:
-        scalar_spec = pl.BlockSpec((1, 1), lambda i: (0, 0))
-        in_specs = [scalar_spec, scalar_spec] + in_specs
-        scale, bias = q_tot_affine
-        operands = [jnp.full((1, 1), scale, dtype),
-                    jnp.full((1, 1), bias, dtype)] + operands
-    out = pl.pallas_call(
-        kernel,
-        grid=(ncol // block_cols,),
-        in_specs=in_specs,
-        out_specs=[spec] * len(_FIELDS),
-        out_shape=[jax.ShapeDtypeStruct((ncol, nlev), dtype)] * len(_FIELDS),
-        interpret=interpret,
-    )(*operands)
-    return ColumnState(*out)
+    def fluxes(s):
+        return _sed_fluxes_1m(s, _psd_1m(s, mp)[1], mp, tv, sediment_cloud)
 
-
-def pack_state(state: ColumnState):
-    """Stack the 7 prognostic fields into one ``(7, ncol, nlev)`` HBM
-    buffer (structure-of-arrays). One buffer = one DMA stream per grid
-    step instead of 14 — the per-step DMA issue cost across 28 separate
-    transfers is a measurable fraction of the packed kernel's runtime."""
-    return jnp.stack(list(state), axis=0)
-
-
-def unpack_state(packed) -> ColumnState:
-    """Inverse of :func:`pack_state`."""
-    return ColumnState(*(packed[k] for k in range(len(_FIELDS))))
-
-
-def _kernel_packed(*refs, mp, tps, tv, dt, dz, mode, nsub, sediment_cloud,
-                   has_affine):
-    if has_affine:
-        scale_ref, bias_ref = refs[:2]
-        refs = refs[2:]
-    in_ref, out_ref = refs
-    state = ColumnState(*(in_ref[k] for k in range(len(_FIELDS))))
-    if has_affine:
-        state = state._replace(
-            q_tot=state.q_tot * scale_ref[0, 0] + bias_ref[0, 0])
-    new = step_column_1m(state, mp, tps, tv, dt, dz, mode=mode, nsub=nsub,
-                         sediment_cloud=sediment_cloud)
-    for k, val in enumerate(new):
-        out_ref[k] = val
-
-
-def step_column_1m_pallas_packed(packed, mp, tps, tv, dt, dz,
-                                 mode: str = "instantaneous", nsub: int = 1,
-                                 sediment_cloud: bool = True,
-                                 block_cols: int = 128,
-                                 interpret: bool = False,
-                                 q_tot_affine=None):
-    """Packed-state variant of :func:`step_column_1m_pallas`: state is a
-    single ``(7, ncol, nlev)`` array (see :func:`pack_state`), maps to a
-    like-shaped output. Fastest production path for long rollouts — the
-    state stays packed across steps so the pack cost is paid once."""
-    nf, ncol, nlev = packed.shape
-    assert nf == len(_FIELDS), packed.shape
-    if ncol % block_cols:
-        raise ValueError(
-            f"ncol={ncol} not a multiple of block_cols={block_cols}")
-    spec = pl.BlockSpec((nf, block_cols, nlev), lambda i: (0, i, 0))
-
-    kernel = functools.partial(
-        _kernel_packed, mp=mp, tps=tps, tv=tv, dt=dt, dz=dz, mode=mode,
-        nsub=nsub, sediment_cloud=sediment_cloud,
-        has_affine=q_tot_affine is not None)
-    in_specs = [spec]
-    operands = [packed]
-    if q_tot_affine is not None:
-        scalar_spec = pl.BlockSpec((1, 1), lambda i: (0, 0))
-        in_specs = [scalar_spec, scalar_spec] + in_specs
-        scale, bias = q_tot_affine
-        operands = [jnp.full((1, 1), scale, packed.dtype),
-                    jnp.full((1, 1), bias, packed.dtype)] + operands
-    return pl.pallas_call(
-        kernel,
-        grid=(ncol // block_cols,),
-        in_specs=in_specs,
-        out_specs=spec,
-        out_shape=jax.ShapeDtypeStruct(packed.shape, packed.dtype),
-        interpret=interpret,
-    )(*operands)
+    return column_step_call(
+        state, lambda s, inflow: step(s, inflow=inflow), fluxes,
+        interpret=interpret)

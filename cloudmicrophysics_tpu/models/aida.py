@@ -1,6 +1,6 @@
 """AIDA chamber-data calibration workflow.
 
-TPU-native port of the reference's data-driven ABIFM/ABHOM calibration
+JAX port of the reference's data-driven ABIFM/ABHOM calibration
 (``/root/reference/papers/ice_nucleation_2024/unpack_AIDA.jl`` +
 ``AIDA_calibrations.jl``): unpack an AIDA ``.edf`` profile, derive
 frozen-fraction observations over the freezing window, and run EKI/UKI

@@ -1,6 +1,6 @@
 """Alpert-Knopf immersion-freezing box model (L6 driver).
 
-TPU-native port of ``/root/reference/box/box.jl``: a cooling box of
+JAX port of ``/root/reference/box/box.jl``: a cooling box of
 droplets freezing via ABIFM. Two variants:
 
 * :func:`run_box` — deterministic rate ``dN_ice/dt = J(T) N_liq A``;

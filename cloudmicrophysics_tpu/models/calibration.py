@@ -1,10 +1,10 @@
 """Ensemble Kalman Inversion (EKI) calibration over the parcel model.
 
-TPU-native re-design of the reference's EKP-based ABIFM calibration
+JAX re-design of the reference's EKP-based ABIFM calibration
 (``/root/reference/papers/ice_nucleation_2024/calibration.jl:294-410``):
 the forward map is the jitted, **vmapped** parcel model — all ensemble
-members run as one batched TPU computation per iteration — and the EKI
-update is a few small matmuls (MXU-friendly).
+members run as one batched device computation per iteration — and the
+EKI update is a few small matmuls.
 
 Provides a generic :func:`eki_calibrate` plus the ABIFM (m, c) perfect-model
 recovery workflow mirrored from the reference tests

@@ -3,9 +3,9 @@
 The reference library is pointwise; the host model applies terminal
 velocities in an upwind vertical flux (see
 ``/root/reference/test/gpu_clima_core_test.jl:34-40`` mimicking the
-ClimaAtmos use). This module supplies that host-model role TPU-natively:
+ClimaAtmos use). This module supplies that host-model role:
 
-* state is a pytree of HBM-resident ``(ncol, nlev)`` arrays;
+* state is a pytree of device-resident ``(ncol, nlev)`` arrays;
 * all process rates are one fused elementwise pass (BMT-1M);
 * sedimentation is a first-order upwind donor-cell flux — a per-column
   *shift*, not a scan: level k receives the flux from level k+1 above, so
@@ -60,9 +60,15 @@ def sedimentation_tendency(rho, q, w, dz):
     elementwise + static slice, fully fusable.
     """
     F = rho * w * q  # downward mass flux [kg/m^2/s]
-    # inflow: flux from the level above (k+1); top gets zero
-    F_in = jnp.concatenate(
-        [F[..., 1:], jnp.zeros_like(F[..., :1])], axis=-1)
+    return _flux_divergence(F, _from_level_above(F), rho, dz)
+
+
+def _from_level_above(F):
+    """Inflow at each level: the flux of the level above; the top gets 0."""
+    return jnp.concatenate([F[..., 1:], jnp.zeros_like(F[..., :1])], axis=-1)
+
+
+def _flux_divergence(F, F_in, rho, dz):
     return (F_in - F) / (rho * dz)
 
 
@@ -92,12 +98,17 @@ def step_column_1m(
 ) -> ColumnState:
     """One explicit Euler step: fused process rates + sedimentation.
 
-    Everything is one jit-able function of the column state — the natural
-    unit for Pallas fusion and for pjit sharding over the column axis.
+    Everything is one jit-able function of the column state, the natural
+    unit for sharding over the column axis.
     """
-    # PSD parameters computed ONCE and shared between the process rates and
-    # the sedimentation velocities (the clamps mirror
-    # microphysics_source_terms_1m so the shared sd is identical)
+    return _step_1m(state, mp, tps, tv, dt, dz, mode, nsub, sediment_cloud,
+                    lambda F: tuple(map(_from_level_above, F)))
+
+
+def _psd_1m(state: ColumnState, mp: Microphysics1MParams):
+    """Clamped micro state and PSD parameters of a 1M column state."""
+    # the clamps mirror microphysics_source_terms_1m so the shared sd is
+    # identical
     from ..utils.special import clamp_to_nonneg
 
     micro = MicroState(
@@ -105,18 +116,18 @@ def step_column_1m(
         clamp_to_nonneg(state.q_icl), clamp_to_nonneg(state.q_rai),
         clamp_to_nonneg(state.q_sno))
     thermo = ThermoState(clamp_to_nonneg(state.rho), state.T)
-    sd = CM1.size_distr_parameters(mp, micro, thermo)
+    return micro, CM1.size_distr_parameters(mp, micro, thermo)
 
-    rates = BMT.bulk_tendencies_1m(
-        mp, tps, state.rho, state.T,
-        state.q_tot, state.q_lcl, state.q_icl, state.q_rai, state.q_sno,
-        mode=mode, dt=dt, nsub=nsub,
-        sd=sd if mode != "linearized_average" else None,
-    )
 
-    # terminal velocities for sedimentation (per reference
-    # src/parameters/TerminalVelocity.jl:356-366 usage table), sharing the
-    # PSD solve with the process rates
+def _sed_fluxes_1m(state: ColumnState, sd, mp, tv, sediment_cloud: bool):
+    """Downward mass fluxes ``rho w q`` of ``(q_lcl, q_icl, q_rai, q_sno)``.
+
+    ``sd`` is the state's :class:`SizeDistParams`, shared with the process
+    rates. Without ``sediment_cloud`` only the rain and snow fluxes are
+    returned.
+    """
+    # terminal velocities per reference src/parameters/TerminalVelocity.jl:
+    # 356-366 usage table
     w_rai = CM1.terminal_velocity(
         mp.precip.rain, mp.terminal_velocity.rain, state.rho, state.q_rai,
         v0=sd.v0_rai, lambda_inv=sd.lambda_inv_rai,
@@ -125,19 +136,37 @@ def step_column_1m(
         mp.precip.snow, mp.terminal_velocity.snow, state.rho, state.q_sno,
         v0=sd.v0_sno, lambda_inv=sd.lambda_inv_sno,
         log_lambda_inv=sd.log_lambda_inv_sno)
-
-    sed_rai = sedimentation_tendency(state.rho, state.q_rai, w_rai, dz)
-    sed_sno = sedimentation_tendency(state.rho, state.q_sno, w_sno, dz)
-
+    pairs = [(w_rai, state.q_rai), (w_sno, state.q_sno)]
     if sediment_cloud:
         w_lcl = CMNonEq.terminal_velocity(
             mp.cloud.liquid, tv.stokes, state.rho, state.q_lcl)
         w_icl = CMNonEq.terminal_velocity(
             mp.cloud.ice, tv.chen2022.small_ice, state.rho, state.q_icl)
-        sed_lcl = sedimentation_tendency(state.rho, state.q_lcl, w_lcl, dz)
-        sed_icl = sedimentation_tendency(state.rho, state.q_icl, w_icl, dz)
-    else:
-        sed_lcl = sed_icl = jnp.zeros_like(state.q_lcl)
+        pairs = [(w_lcl, state.q_lcl), (w_icl, state.q_icl)] + pairs
+    return tuple(state.rho * w * q for w, q in pairs)
+
+
+def _step_1m(state, mp, tps, tv, dt, dz, mode, nsub, sediment_cloud,
+             inflow):
+    """:func:`step_column_1m` with the level-above inflow supplied by
+    ``inflow(fluxes) -> fluxes_in`` (a kernel that cannot shift a tile
+    along the level axis computes it from a shifted load instead)."""
+    micro, sd = _psd_1m(state, mp)
+
+    rates = BMT.bulk_tendencies_1m(
+        mp, tps, state.rho, state.T,
+        state.q_tot, state.q_lcl, state.q_icl, state.q_rai, state.q_sno,
+        mode=mode, dt=dt, nsub=nsub,
+        sd=sd if mode != "linearized_average" else None,
+    )
+
+    # sedimentation shares the PSD solve with the process rates
+    F = _sed_fluxes_1m(state, sd, mp, tv, sediment_cloud)
+    sed = [_flux_divergence(f, f_in, state.rho, dz)
+           for f, f_in in zip(F, inflow(F))]
+    if not sediment_cloud:
+        sed = [jnp.zeros_like(state.q_lcl)] * 2 + sed
+    sed_lcl, sed_icl, sed_rai, sed_sno = sed
 
     q_lcl = state.q_lcl + dt * (rates.dq_lcl_dt + sed_lcl)
     q_icl = state.q_icl + dt * (rates.dq_icl_dt + sed_icl)
@@ -182,8 +211,7 @@ class ColumnState2M(NamedTuple):
 
 
 def step_column_2m(state: "ColumnState2M", mp, tps: ThermodynamicsParameters,
-                   dt, dz, impl: str = "xla",
-                   block_cols: int = 128) -> "ColumnState2M":
+                   dt, dz, impl: str = "xla") -> "ColumnState2M":
     """One explicit Euler step of the SB2006 warm-rain column: fused
     process rates + number- and mass-weighted rain sedimentation
     (the 2M analog of :func:`step_column_1m`; velocities per reference
@@ -191,48 +219,48 @@ def step_column_2m(state: "ColumnState2M", mp, tps: ThermodynamicsParameters,
 
     ``impl`` selects the compiled form (identical math):
 
-    * ``"xla"`` (default) — one jit-fused XLA program; runs on any
-      backend (measured 2.9e9 pts/s on v5e at 33M cells);
-    * ``"pallas"`` — the packed-state Pallas kernel
-      (:mod:`..kernels.column2m`): the 7 prognostic fields ride in one
-      ``(7, ncol, nlev)`` HBM buffer, the whole step is one tiled HBM
-      pass (measured 4.2e9 pts/s on v5e — the production fast path).
-      ``block_cols`` is halved automatically until it divides ``ncol``;
-      on non-TPU backends the kernel runs in interpret mode (slow —
-      intended only for parity tests and mesh dryruns).
+    * ``"xla"`` (default) — XLA's fusion of the jnp step; any backend;
+    * ``"pallas"`` — the Triton-route kernel
+      (:func:`..kernels.column2m.step_column_2m_triton`), faster on the
+      GPU (PERF.md); needs a GPU and a power-of-two ``nlev``, and raises
+      on any other backend.
     """
-    from ..ops import m2 as CM2
-
     if impl == "pallas":
         import jax
 
-        from ..kernels.column2m import (
-            pack_state_2m,
-            step_column_2m_pallas_packed,
-            unpack_state_2m,
-        )
+        from ..kernels.column2m import step_column_2m_triton
 
-        ncol = state.rho.shape[0]
-        bc = max(block_cols, 1)
-        while ncol % bc:
-            bc //= 2
-        packed = step_column_2m_pallas_packed(
-            pack_state_2m(state), mp, tps, dt, dz, block_cols=bc,
-            interpret=jax.default_backend() != "tpu")
-        return unpack_state_2m(packed)
+        if jax.default_backend() != "gpu":
+            raise ValueError(
+                "impl='pallas' compiles for the GPU; the backend is "
+                f"{jax.default_backend()!r}")
+        return step_column_2m_triton(state, mp, tps, dt, dz)
     if impl != "xla":
         raise ValueError(f"unknown impl {impl!r} (expected 'xla'|'pallas')")
+    return _step_2m(state, mp, tps, dt, dz,
+                    lambda F: tuple(map(_from_level_above, F)))
 
-    sb = mp.warm_rain.seifert_beheng
+
+def _sed_fluxes_2m(state: "ColumnState2M", mp):
+    """Downward rain mass and number fluxes ``rho w q``, ``rho w n``."""
+    from ..ops import m2 as CM2
+
+    vt_n, vt_m = CM2.rain_terminal_velocity(
+        mp.warm_rain.seifert_beheng, _chen_or_sb(mp), state.q_rai,
+        state.rho, state.n_rai * state.rho)
+    return state.rho * vt_m * state.q_rai, state.rho * vt_n * state.n_rai
+
+
+def _step_2m(state, mp, tps, dt, dz, inflow):
+    """:func:`step_column_2m` with the level-above inflow supplied by
+    ``inflow(fluxes) -> fluxes_in`` (see :func:`_step_1m`)."""
     rates = BMT.bulk_tendencies_2m(
         mp, tps, state.rho, state.T, state.q_tot, state.q_lcl, state.n_lcl,
         state.q_rai, state.n_rai)
 
-    N_rai = state.n_rai * state.rho
-    vt_n, vt_m = CM2.rain_terminal_velocity(sb, _chen_or_sb(mp),
-                                            state.q_rai, state.rho, N_rai)
-    sed_q_rai = sedimentation_tendency(state.rho, state.q_rai, vt_m, dz)
-    sed_n_rai = sedimentation_tendency(state.rho, state.n_rai, vt_n, dz)
+    F = _sed_fluxes_2m(state, mp)
+    sed_q_rai, sed_n_rai = (_flux_divergence(f, f_in, state.rho, dz)
+                            for f, f_in in zip(F, inflow(F)))
 
     clamp = lambda q: jnp.maximum(q, jnp.zeros_like(q))
     Lv = TDI.latent_heat_vapor(tps, state.T)
@@ -299,9 +327,8 @@ def step_column_p3(state: "ColumnStateP3", mp, tps: ThermodynamicsParameters,
 
     ``col_chunks``: optionally evaluate the step over that many
     ``ncol`` chunks via :func:`..perf.chunked_cells` (identical math;
-    keeps the shared node tables on-chip between consumers — measured
-    2.21e7 -> 3.07e7 pts/s at 16384x128 GL-8 on v5e with ~16k grid
-    points per chunk; recommended for multi-thousand-column batches).
+    bounds the working set of the shared node tables; the benchmarks use
+    ~16k grid points per chunk).
     ``ncol`` must be divisible by it. On a multi-device mesh apply the
     chunking per shard — call this inside ``jax.shard_map`` over the
     columns axis (see perf.chunked_cells docstring) — so the sequential

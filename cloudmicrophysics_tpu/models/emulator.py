@@ -1,6 +1,6 @@
 """ML emulator hook for ARG aerosol activation.
 
-TPU-native equivalent of ``/root/reference/ext/EmulatorModelsExt.jl``:
+JAX equivalent of ``/root/reference/ext/EmulatorModelsExt.jl``:
 three interchangeable regressor families substitute for the ARG
 parameterization behind the same ``N_activated_per_mode`` API — a flax
 MLP, an exact-GP/kernel-ridge regressor, and gradient-boosted oblivious
@@ -69,8 +69,8 @@ class GPRegressor:
     Exposes the same ``apply(params, X)`` protocol as a flax module, so
     :func:`N_activated_per_mode_emulated` works with either family.
 
-    The prediction is one ``K(X*, Xtrain) @ alpha`` matmul — it rides the
-    MXU, so inference batches are cheap on TPU.
+    The prediction is one ``K(X*, Xtrain) @ alpha`` matmul, so inference
+    batches are cheap on an accelerator.
     """
 
     def __init__(self, lengthscale=1.0, signal_var=1.0, noise=1e-4):
@@ -117,7 +117,7 @@ class BoostedTreesRegressor:
     Oblivious (CatBoost-style) trees use ONE (feature, threshold) split
     per level, shared across the whole level, so a depth-``d`` tree is
     just ``d`` comparisons and a ``2^d``-leaf lookup. That structure is
-    what makes tree inference TPU-native: for a whole forest the leaf
+    what makes tree inference vectorize: for a whole forest the leaf
     index is a batched bit-pack (pure vector compares + shifts, no
     per-node pointer chasing) and the leaf lookup is one
     ``take_along_axis`` over a ``(n_trees, 2^d)`` table — fully jit/vmap
@@ -293,7 +293,7 @@ def generate_parcel_training_data(ap, aip, tps, n_samples=256, n_modes=2,
     ``mode_1_act_frac_S_interp`` — the mode-1 activated fraction evaluated
     at the parcel's S_max). Here each sample runs a liquid-only
     activation+condensation parcel (vmapped over the ensemble — one fused
-    TPU batch), S_max is taken over the trajectory, and the label is the
+    device batch), S_max is taken over the trajectory, and the label is the
     erf activated fraction of mode 1 at that S_max.
     """
     from ..utils.param import replace as preplace

@@ -1,6 +1,6 @@
 """Minimal P3 ice sandbox driver.
 
-TPU-native port of ``/root/reference/p3_sandbox/p3_sandbox.jl``: a
+JAX port of ``/root/reference/p3_sandbox/p3_sandbox.jl``: a
 4-variable ODE ``[N_ice, q_ice, q_rim, B_rim]`` with ABIFM immersion
 nucleation as the (only) source, Euler-stepped with ``lax.scan``. A
 development scaffold for exercising the P3 state/threshold machinery.

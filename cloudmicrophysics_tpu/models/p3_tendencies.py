@@ -1,6 +1,6 @@
 """2-moment + P3 ice fused tendencies.
 
-TPU-native port of ``/root/reference/src/BulkMicrophysicsTendencies.jl:898-1083``:
+JAX port of ``/root/reference/src/BulkMicrophysicsTendencies.jl:898-1083``:
 warm-rain SB2006 tendencies plus the P3 ice processes — liquid-ice
 collisions, ice self-collection, melting, F23 deposition nucleation,
 F23-capped Bigg immersion freezing, sublimation/deposition relaxation with
@@ -10,7 +10,7 @@ rime drain, ice number adjustment, and Bigg rain freezing.
 holds it fixed, matching the reference's contract). The reference gates
 the expensive collision block behind ``q_ice > eps``; here the block is
 computed unconditionally on sanitized state and masked — the branchless
-equivalent (all cells of a TPU batch run the same code path).
+equivalent (all cells of a batch run the same code path).
 """
 
 from __future__ import annotations
@@ -98,17 +98,14 @@ def p3_step_aux(mp, rho, q_ice, n_ice, q_rim, b_rim,
     # collection, melt, sedimentation velocities) — measured ~2x the
     # transcendental volume of the full 2M+P3 step at GL-16. Only the
     # cell-shaped arrays go through the barrier (the params pytree keeps
-    # its Python-float leaves as trace-time constants). Skipped inside
-    # Pallas traces (Mosaic kernels manage their own fusion).
-    # CMT_NO_AUX_BARRIER=1 disables it (perf A/B knob: recompute-in-
-    # consumers vs materialize-to-HBM; the barrier won on v5e at 2M
-    # cells, see docs/Performance.md).
+    # its Python-float leaves as trace-time constants).
+    # CMT_NO_AUX_BARRIER=1 disables it (A/B knob: recompute-in-consumers
+    # vs materialize-to-device-memory; not yet measured on the GPU).
     import os as _os
 
-    from ..utils.special import in_pallas_trace
     import jax as _jax
 
-    if not in_pallas_trace() and not _os.environ.get("CMT_NO_AUX_BARRIER"):
+    if not _os.environ.get("CMT_NO_AUX_BARRIER"):
         # Only the table streams every consumer actually contracts (D,
         # v, n*w, bnds) go through the barrier; the raw n and w columns
         # stay unbarriered pass-throughs so they dead-code-eliminate

@@ -1,10 +1,10 @@
 """Adiabatic parcel model (L6 driver).
 
-TPU-native re-design of ``/root/reference/parcel/``: the 10-variable ODE
+JAX re-design of ``/root/reference/parcel/``: the 10-variable ODE
 system ``[S_l, p, T, q_vap, q_liq, q_ice, N_aer, N_liq, N_ice, ln_INPC]``
 Euler-stepped with ``lax.scan`` (static trip count), process selection via
 static strings, fully jit-able and ``vmap``-able over ensembles (the
-natural TPU execution mode: one compiled scan, thousands of parcels in
+natural accelerator execution mode: one compiled scan, thousands of parcels in
 parallel — used by the EKI calibration layer).
 
 Processes (reference ``parcel/ParcelTendencies.jl``):

@@ -1,6 +1,6 @@
 """Fused bulk microphysics tendencies (L5) — the single-entry API.
 
-TPU-native port of ``/root/reference/src/BulkMicrophysicsTendencies.jl``:
+JAX port of ``/root/reference/src/BulkMicrophysicsTendencies.jl``:
 all process rates for a scheme are computed in a single fused elementwise
 pass over local state, suitable for jit/vmap over ``(ncol, nlev)`` arrays
 and for Pallas fusion (the whole tendency is one kernel per grid point).

@@ -1,6 +1,6 @@
 """ARG2000 aerosol activation.
 
-TPU-native port of ``/root/reference/src/AerosolActivation.jl``: per-mode
+JAX port of ``/root/reference/src/AerosolActivation.jl``: per-mode
 mean hygroscopicity, critical supersaturation, maximum supersaturation
 (ARG eq 11/12 with Korolev-Mazin alpha/gamma and liquid/ice
 condensation-sink corrections), and activated number/mass via erf/erfc.

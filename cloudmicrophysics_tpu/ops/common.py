@@ -1,6 +1,6 @@
 """Shared physics helpers (L3).
 
-TPU-native port of ``/root/reference/src/Common.jl``: thermal
+JAX port of ``/root/reference/src/Common.jl``: thermal
 conductivity/diffusivity G-functions, smooth logistic threshold functions,
 water activities, Chen 2022 terminal-velocity coefficient evaluation, and
 ventilation factors. All elementwise and branchless.

@@ -1,6 +1,6 @@
 """Cloud diagnostics: radar reflectivity and effective radius.
 
-TPU-native port of ``/root/reference/src/CloudDiagnostics.jl``.
+JAX port of ``/root/reference/src/CloudDiagnostics.jl``.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Heterogeneous + homogeneous ice nucleation.
 
-TPU-native port of ``/root/reference/src/IceNucleation.jl``: Mohler 2006
+JAX port of ``/root/reference/src/IceNucleation.jl``: Mohler 2006
 dust deposition activation, water-activity-based deposition (ABDINM) and
 immersion (ABIFM) J-coefficients, P3-style deposition/condensation-freezing
 N_i, Frostenberg 2023 INP climatology (frequency / mean / budgeted rates),

@@ -1,6 +1,6 @@
 """0-moment bulk microphysics (threshold relaxation removal).
 
-TPU-native port of ``/root/reference/src/Microphysics0M.jl``.
+JAX port of ``/root/reference/src/Microphysics0M.jl``.
 """
 
 from __future__ import annotations

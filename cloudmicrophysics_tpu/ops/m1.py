@@ -1,6 +1,6 @@
 """1-moment bulk microphysics (Marshall-Palmer rain/snow/cloud-ice).
 
-TPU-native port of ``/root/reference/src/Microphysics1M.jl``: terminal
+JAX port of ``/root/reference/src/Microphysics1M.jl``: terminal
 velocities (power-law and Chen 2022), autoconversion, the four accretion
 pairs + rain sink + two-sided rain-snow collisions with a
 velocity-dispersion kernel, rain evaporation, snow sublimation/deposition,
@@ -112,11 +112,10 @@ class SizeDistParams(NamedTuple):
 
     The ``log_lambda_inv_*`` fields carry ``log(lambda_inv)`` (floored,
     identical to ``log`` of the value field) so every downstream fractional
-    power ``(lambda_inv/r0)**p`` collapses to a single ``exp`` — on TPU,
-    ``pow`` lowers to ``exp(p log x)`` and the VPU runs ``pow`` ~3.5x
-    slower than a bare ``exp`` (measured: 83 vs 282 Gop/s on v5e), so
-    sharing the log across the ~10 power sites is the dominant cost saving
-    of the fused 1M kernel. ``None`` when constructed by hand (all rate
+    power ``(lambda_inv/r0)**p`` collapses to a single ``exp``; ``pow``
+    lowers to ``exp(p log x)`` plus special-case handling, so sharing the
+    log across the ~10 power sites saves most of the fused 1M step's
+    transcendentals. ``None`` when constructed by hand (all rate
     functions fall back to ``pow`` on the value field)."""
 
     lambda_inv_rai: Array

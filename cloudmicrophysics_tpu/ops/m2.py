@@ -1,6 +1,6 @@
 """2-moment microphysics (Seifert-Beheng 2006 + legacy schemes).
 
-TPU-native port of ``/root/reference/src/Microphysics2M.jl``: SB2006 rain
+JAX port of ``/root/reference/src/Microphysics2M.jl``: SB2006 rain
 PSD solve (with/without limiters), cloud generalized-gamma PSD in
 log-space, autoconversion with the phi_au universality function,
 accretion, cloud/rain self-collection, breakup, terminal velocities,

@@ -1,6 +1,6 @@
 """Non-equilibrium cloud condensate formation (relaxation to saturation).
 
-TPU-native port of ``/root/reference/src/MicrophysicsNonEq.jl``:
+JAX port of ``/root/reference/src/MicrophysicsNonEq.jl``:
 condensation/evaporation of cloud liquid and deposition/sublimation of
 cloud ice with the Morrison-Grabowski Gamma correction, the INP limiter,
 the Frostenberg temperature-dependent deposition timescale, and

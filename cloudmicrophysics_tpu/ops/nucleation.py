@@ -1,6 +1,6 @@
 """New-particle-formation (aerosol nucleation) rates.
 
-TPU-native port of ``/root/reference/src/Nucleation.jl``: Lehtinen 2007
+JAX port of ``/root/reference/src/Nucleation.jl``: Lehtinen 2007
 apparent nucleation rate, Dunne 2016 binary/ternary H2SO4 CLOUD fits,
 Kirkby 2016 pure-organic nucleation, and Riccobono 2014 mixed
 organic-H2SO4 nucleation. All rates in SI (1/m^3/s) with the reference's

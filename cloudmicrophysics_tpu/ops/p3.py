@@ -1,7 +1,7 @@
 """P3 scheme core: state, thresholds, size distribution, shape solver,
 integral properties, and terminal velocities.
 
-TPU-native port of the reference P3 files:
+JAX port of the reference P3 files:
 
 * ``src/P3_particle_properties.jl`` — ``P3State`` with thresholds cached at
   construction; numerically stable ``get_rho_d`` via exprel phi-functions;
@@ -502,9 +502,10 @@ def _brent_fixed(f, lo, f_lo, hi, f_hi, n_iters: int,
         fb_new = f(b_new)
         return a_new, fa_new, b_new, fb_new, c, fc, d_new, e_new
 
-    # unroll on TPU when f is cheap (e.g. the collision crossover solve):
-    # the 8 loop carries are full-size arrays and a rolled loop round-trips
-    # them through HBM every iteration. Callers whose f is itself a large
+    # unroll where loop_unroll() says so, when f is cheap (e.g. the
+    # collision crossover solve): the 8 loop carries are full-size arrays
+    # and a rolled loop round-trips them through device memory every
+    # iteration. Callers whose f is itself a large
     # graph (the shape solver: gamma_inc segment moments per iteration)
     # pass unroll=False — there the 8x HLO duplication blows up compile
     # time for a minor runtime gain (the gamma_inc loops inside the body
@@ -629,8 +630,8 @@ class IceQuadNodes(NamedTuple):
     self-collection (outer axis), melt, number-/mass-weighted terminal
     velocities — contracts against the SAME ice-node axis. The reference
     evaluates each integral independently (host-side broadcasting,
-    src/P3_terminal_velocity.jl:73-135, src/P3_processes.jl:449-567); on
-    TPU the v(D)/n(D) node tables are the dominant per-node VPU cost, so
+    src/P3_terminal_velocity.jl:73-135, src/P3_processes.jl:449-567); the
+    v(D)/n(D) node tables are the dominant per-node arithmetic, so
     they are computed once per step and threaded into each consumer.
     """
 

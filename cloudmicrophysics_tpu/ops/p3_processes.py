@@ -1,7 +1,7 @@
 """P3 microphysical processes: melting, liquid-ice collisions (the roofline
 double integral), and ice self-collection.
 
-TPU-native port of ``/root/reference/src/P3_processes.jl``:
+JAX port of ``/root/reference/src/P3_processes.jl``:
 
 * :func:`het_ice_nucleation` — ABIFM immersion on cloud drops (``:20-45``);
 * :func:`ice_melt` — ventilation melt integral (``:64-94``);
@@ -13,7 +13,7 @@ TPU-native port of ``/root/reference/src/P3_processes.jl``:
   flux sums with a crossover-diameter Brent solve) (``:152-655``);
 * :func:`ice_self_collection` — cusp-split double integral (``:676-712``).
 
-TPU mapping (SURVEY.md §7 hard part #1): fixed node counts; the inner
+Array mapping (SURVEY.md §7 hard part #1): fixed node counts; the inner
 liquid node axis is a leading array axis stacked on the outer ice node
 axis, so the whole double integral is one fused (n_l x n_i x cell)
 elementwise block contracted by two dots — no data-dependent trip counts.
@@ -29,12 +29,7 @@ from jax import Array
 from ..parameters.common import AirProperties
 from ..parameters.thermodynamics import ThermodynamicsParameters
 from ..utils.quadrature import QuadratureRule, default_quadrature
-from ..utils.special import (
-    clamp_to_nonneg,
-    float_dtype,
-    in_pallas_trace,
-    machine_eps,
-)
+from ..utils.special import clamp_to_nonneg, float_dtype, machine_eps
 from . import common as CO
 from . import ice_nucleation as CMI
 from . import m2 as CM2
@@ -79,9 +74,8 @@ def _node_iter(quad: QuadratureRule, a, b):
 
     if isinstance(y_np, _np.ndarray):
         # host-side rule (e.g. GaussLegendre): slice to PYTHON scalars
-        # before any jnp conversion, so a Pallas kernel body never
-        # captures the table as an array constant (Mosaic requires array
-        # constants to be operands; scalars are fine)
+        # before any jnp conversion, so the nodes fold into the traced
+        # arithmetic as literals
         for yj, wj in zip(y_np.reshape(-1).tolist(),
                           w_np.reshape(-1).tolist()):
             x = scale * yj + mid
@@ -93,8 +87,7 @@ def _node_iter(quad: QuadratureRule, a, b):
     w_arr = jnp.asarray(w_np, dt)
     # Tabulated tables bake in (1, 1) trailing broadcast axes for the
     # (ncol, nlev) tile case; drop any that exceed the cell rank so the
-    # yielded nodes match the bounds' shape exactly (static shape logic;
-    # the reshape source is >= 2-D, which Mosaic accepts)
+    # yielded nodes match the bounds' shape exactly (static shape logic)
     excess = (y_arr.ndim - 1) - jnp.ndim(scale)
     for j in range(int(y_arr.shape[0])):
         yj, wj = y_arr[j], w_arr[j]
@@ -253,7 +246,7 @@ def _endpoint_ladders(z0, alpha_safe, D):
     both recurrences are subtraction-free (every term positive), so the
     laddered values carry the same rounding accuracy as direct evaluation
     while doing ~6x less fixed-iteration loop work. This is the dominant
-    cost of the P3 collision kernel on TPU (the reference evaluates the
+    cost of the P3 collision kernel (the reference evaluates the
     flux sums moment-by-moment, src/P3_processes.jl:344-415; the ladder
     computes identical mathematics).
     """
@@ -352,8 +345,8 @@ def bulk_liquid_ice_collision_sources(
     smooth apart from the integrated-through rain kink, so their
     quadrature error is far below the ice axis' regime-kink error, while
     every liquid node multiplies the whole (liquid x ice x cell) pair
-    space — the single largest wall-time term of the fused P3 step on
-    TPU. ``"quadrature_split"``/``"closed_form"`` keep the full order
+    space — the single largest wall-time term of the fused P3 step
+    measured so far. ``"quadrature_split"``/``"closed_form"`` keep the full order
     (they are the accuracy anchors).
     """
     if quad is None:
@@ -401,8 +394,7 @@ def bulk_liquid_ice_collision_sources(
 
     # --- cloud inner integral by quadrature: liquid axis leads (XLA
     # fuses the broadcast + reduction without materializing the full
-    # (n_l, n_ice_nodes, *cell) tensor — measured faster than an
-    # accumulated node loop on v5e) ---
+    # (n_l, n_ice_nodes, *cell) tensor) ---
     Dl_c, wl_c = _nodes(liquid_quad, c_lo, c_hi)   # (n_l, *cell)
     Dl = Dl_c[:, None]                          # (n_l, 1, *cell)
     # quadrature weight and mass folded into the per-NODE factors so the
@@ -433,35 +425,19 @@ def bulk_liquid_ice_collision_sources(
         # node factor once on (n_l, *cell), broadcast across the ice
         # axis. Invalid rain windows integrate over the dummy [1, 2] m
         # window where n_r underflows to 0 and are masked below anyway.
-        if in_pallas_trace():
-            # VMEM-lean: accumulate liquid nodes one at a time; each
-            # node's transcendentals are cell-shaped, the cross term is
-            # (n_i, *cell)
-            zero = jnp.zeros_like(k0)
-            dN_r_col, dM_r_col, dB_r_col = zero, zero, zero
-            for Dl_n, w_n in _node_iter(liquid_quad, r_lo_s, r_hi_s):
-                K_n = (k2 * Dl_n + k1) * Dl_n + k0
-                v_rel = jnp.abs(v_i_at_Di - v_liq(Dl_n))
-                t1 = K_n * v_rel * n_r(Dl_n) * w_n
-                t2 = t1 * m_liq(Dl_n)
-                dN_r_col = dN_r_col + t1
-                dM_r_col = dM_r_col + t2
-                dB_r_col = dB_r_col + t2 / rho_rim_loc(Di, Dl_n,
-                                                       v_rel=v_rel)
-        else:
-            Dl_r, wl_r = _nodes(liquid_quad, r_lo_s, r_hi_s)  # (n_l, *cell)
-            v_l = v_liq(Dl_r)
-            nw_r = (n_r(Dl_r) * wl_r)[:, None]
-            nwm_r = nw_r * m_liq(Dl_r)[:, None]
-            Dlr = Dl_r[:, None]
-            K_n = (k2 * Dlr + k1[None]) * Dlr + k0[None]
-            v_rel = jnp.abs(v_i_at_Di[None] - v_l[:, None])
-            dV_r = K_n * v_rel
-            t2 = dV_r * nwm_r
-            t3 = t2 / rho_rim_loc(Di[None], Dlr, v_rel=v_rel)
-            dN_r_col = jnp.sum(dV_r * nw_r, axis=0)
-            dM_r_col = jnp.sum(t2, axis=0)
-            dB_r_col = jnp.sum(t3, axis=0)
+        Dl_r, wl_r = _nodes(liquid_quad, r_lo_s, r_hi_s)  # (n_l, *cell)
+        v_l = v_liq(Dl_r)
+        nw_r = (n_r(Dl_r) * wl_r)[:, None]
+        nwm_r = nw_r * m_liq(Dl_r)[:, None]
+        Dlr = Dl_r[:, None]
+        K_n = (k2 * Dlr + k1[None]) * Dlr + k0[None]
+        v_rel = jnp.abs(v_i_at_Di[None] - v_l[:, None])
+        dV_r = K_n * v_rel
+        t2 = dV_r * nwm_r
+        t3 = t2 / rho_rim_loc(Di[None], Dlr, v_rel=v_rel)
+        dN_r_col = jnp.sum(dV_r * nw_r, axis=0)
+        dM_r_col = jnp.sum(t2, axis=0)
+        dB_r_col = jnp.sum(t3, axis=0)
     elif rain_inner == "quadrature_split":
         # A wrong crossover (no crossing in the window: Brent
         # unbracketed) only moves the split point of a then-smooth
@@ -472,27 +448,15 @@ def bulk_liquid_ice_collision_sources(
         lo_b = r_lo_s + jnp.zeros_like(Dstar)
         hi_b = r_hi_s + jnp.zeros_like(Dstar)
         for a, b in ((lo_b, Dstar), (Dstar, hi_b)):
-            if in_pallas_trace():
-                # VMEM-lean node-by-node accumulation (see _node_iter)
-                for Dl_n, w_n in _node_iter(quad, a, b):
-                    K_n = (k2 * Dl_n + k1) * Dl_n + k0
-                    t1 = K_n * jnp.abs(v_i_at_Di - v_liq(Dl_n)) \
-                        * n_r(Dl_n) * w_n
-                    t2 = t1 * m_liq(Dl_n)
-                    dN_r_col = dN_r_col + t1
-                    dM_r_col = dM_r_col + t2
-                    dB_r_col = dB_r_col + t2 / rho_rim_loc(Di, Dl_n,
-                                                           v_i_at_Di)
-            else:
-                Dl_n, w_n = _nodes(quad, a, b)   # (n_l, n_i, *cell)
-                K_n = (k2 * Dl_n + k1[None]) * Dl_n + k0[None]
-                t1 = K_n * jnp.abs(v_i_at_Di[None] - v_liq(Dl_n)) \
-                    * n_r(Dl_n)
-                t2 = t1 * m_liq(Dl_n)
-                t3 = t2 / rho_rim_loc(Di[None], Dl_n, v_i_at_Di[None])
-                dN_r_col = dN_r_col + jnp.sum(t1 * w_n, axis=0)
-                dM_r_col = dM_r_col + jnp.sum(t2 * w_n, axis=0)
-                dB_r_col = dB_r_col + jnp.sum(t3 * w_n, axis=0)
+            Dl_n, w_n = _nodes(quad, a, b)   # (n_l, n_i, *cell)
+            K_n = (k2 * Dl_n + k1[None]) * Dl_n + k0[None]
+            t1 = K_n * jnp.abs(v_i_at_Di[None] - v_liq(Dl_n)) \
+                * n_r(Dl_n)
+            t2 = t1 * m_liq(Dl_n)
+            t3 = t2 / rho_rim_loc(Di[None], Dl_n, v_i_at_Di[None])
+            dN_r_col = dN_r_col + jnp.sum(t1 * w_n, axis=0)
+            dM_r_col = dM_r_col + jnp.sum(t2 * w_n, axis=0)
+            dB_r_col = dB_r_col + jnp.sum(t3 * w_n, axis=0)
     else:
         # Closed form: flux sums per velocity term via two-sided gamma
         # ladders — the six consecutive moment exponents (pexp in {0, 3}
@@ -716,8 +680,7 @@ def ice_self_collection(state: P3.P3State, loglambda, vel, rho_a, quad=None,
     # --- "triangle": cusp-split inner axis at half order (floor 4) ---
     n_i = P3.size_distribution(state, loglambda)
     v_ice = P3.ice_particle_terminal_velocity(vel, rho_a, state)
-    # host-side rule: _node_iter slices it to SCALAR nodes, so the inner
-    # tables never become in-kernel array constants (Mosaic-safe)
+    # host-side rule: _node_iter slices it to SCALAR nodes
     inner_quad = GaussLegendre(max(quad.n // 2, 4))
     D_lo = nodes.bnds[0]
 
@@ -732,22 +695,6 @@ def ice_self_collection(state: P3.P3State, loglambda, vel, rho_a, quad=None,
             K = PI * (r1 + r2) ** 2
             acc = acc + K * jnp.abs(v1 - v2) * n_i(D2) * w2
         return acc
-
-    if in_pallas_trace():
-        # VMEM-lean: statically-chunked outer axis (Mosaic has neither
-        # dynamic_slice nor bool loop carries, so the chunk loop is a
-        # Python unroll)
-        n_outer = D1.shape[0]
-        chunk = max(quad.n // 2, 1)
-        total = jnp.zeros_like(loglambda + jnp.asarray(rho_a, dt))
-        for s in range(0, n_outer, chunk):
-            D1_c = D1[s:s + chunk]
-            v1_c = nodes.v[s:s + chunk]
-            r1_c = jnp.sqrt(P3.ice_area(state, D1_c) / PI)
-            inner = lower_triangle(r1_c, v1_c, D1_c)
-            total = total + jnp.sum(
-                inner * n1_of_D1[s:s + chunk] * w1[s:s + chunk], axis=0)
-        return total
 
     v1 = nodes.v
     r1 = jnp.sqrt(P3.ice_area(state, D1) / PI)

@@ -1,6 +1,6 @@
 """Precipitation susceptibility: d ln(process) / d ln(q, N).
 
-TPU-native port of ``/root/reference/src/PrecipitationSusceptibility.jl`` —
+JAX port of ``/root/reference/src/PrecipitationSusceptibility.jl`` —
 the reference uses ForwardDiff gradients in log space; here it is a direct
 ``jax.grad`` of the log-rate (free in JAX, per SURVEY.md §7 step 6).
 """

@@ -1,6 +1,6 @@
 """Thermodynamics bridge (L2).
 
-TPU-native implementation of the ~15 functions the reference re-exports from
+JAX implementation of the ~15 functions the reference re-exports from
 Thermodynamics.jl through ``/root/reference/src/ThermodynamicsInterface.jl``:
 saturation vapor pressures (Clausius-Clapeyron with temperature-dependent
 latent heats), latent heats (Kirchhoff), moist-air gas constant / heat
@@ -61,8 +61,8 @@ def _saturation_vapor_pressure(tps: TPS, T, LH_0, delta_cp):
     """Integrated Clausius-Clapeyron with linear-in-T latent heat.
 
     The power term is written as an explicit ``exp(k log(T/T_triple))`` and
-    merged with the Clausius exponent: ``pow`` lowers to exactly this on
-    TPU but costs ~3.5x a bare exp, and writing the log explicitly lets XLA
+    merged with the Clausius exponent: ``pow`` lowers to this plus
+    special-case handling, and writing the log explicitly lets XLA
     CSE ``log(T/T_triple)`` between the over-liquid and over-ice calls that
     always appear together in the fused tendency kernels (one log + two
     exps instead of two pows + two exps)."""

@@ -2,7 +2,7 @@
 
 The reference has no internal parallelism — its ecosystem delegates to
 ClimaComms (MPI context + device abstraction; see SURVEY.md §2.5). The
-TPU-native equivalent is a device mesh + GSPMD sharding:
+JAX equivalent is a device mesh + GSPMD sharding:
 
 * microphysics is vertical-column-local, so the only meaningful axis is
   the horizontal ``columns`` axis — pure data parallelism with **zero**

@@ -1,6 +1,6 @@
 """Flat-TOML parameter-override pipeline.
 
-TPU-native replacement for the reference's ClimaParams TOML machinery
+JAX replacement for the reference's ClimaParams TOML machinery
 (reference ``src/parameters/Parameters.jl:62-74`` and
 ``src/parameters/toml/``): a flat TOML file of ClimaParams-style long
 names is parsed host-side, mapped through an explicit name→factory-kwarg

@@ -6,7 +6,7 @@ structs, kwdef defaults computed at construction),
 ``Microphysics1MParams.jl`` (container). Default values are the ClimaParams
 registry defaults documented in ``docs/src/Microphysics1M.md`` tables.
 
-TPU design: option selection is *static* (strings / None held as pytree aux
+Design: option selection is *static* (strings / None held as pytree aux
 data) so XLA specializes the fused kernel per configuration, exactly like
 Julia's type-level dispatch on singleton option types.
 """

@@ -1,6 +1,6 @@
-"""Performance-regression harness.
+"""Performance-regression harness and timing helpers.
 
-TPU-native analog of the reference's ``bench_press``
+JAX analog of the reference's ``bench_press``
 (``/root/reference/test/performance_tests.jl:26-76``), which enforces a
 per-call latency budget, zero allocations, JET type-stability, and a
 return-type check on every hot function. The XLA equivalents enforced
@@ -17,13 +17,64 @@ here:
 from __future__ import annotations
 
 import contextlib
+import os
+import subprocess
 import time
 from typing import Any, Callable, NamedTuple
 
 import jax
 import jax.numpy as jnp
 
-__all__ = ["bench_press", "BenchReport", "profile_trace", "chunked_cells"]
+__all__ = ["bench_press", "BenchReport", "profile_trace", "chunked_cells",
+           "enable_compile_cache", "gpu_label", "time_steps"]
+
+
+def enable_compile_cache(default_dir: str) -> str:
+    """Keep JAX's persistent compile cache in ``$JAX_COMPILATION_CACHE_DIR``
+    when that is set, else in ``default_dir`` (a fixed path, because the
+    path is part of the cache key). Returns the directory used."""
+    cache = os.environ.get("JAX_COMPILATION_CACHE_DIR") or default_dir
+    jax.config.update("jax_compilation_cache_dir", cache)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
+    return cache
+
+
+def gpu_label() -> dict:
+    """The device every timing is taken on: JAX's view of it plus the
+    card's name and power limit from ``nvidia-smi`` (a card set below its
+    maximum power runs slower under load). Raises unless JAX's first
+    device is a GPU: a timing from any other device is not a measurement
+    of this program."""
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        raise RuntimeError(
+            f"timings need a GPU; JAX's first device is {dev.platform!r}")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    return {"platform": dev.platform, "kind": dev.device_kind,
+            "count": len(jax.devices()),
+            "nvidia_smi": smi.strip().splitlines()[0]}
+
+
+def time_steps(fn: Callable, args: tuple, n: int = 5):
+    """Compile ``jax.jit(fn)`` for ``args``, run it once to warm up, then
+    time ``n`` calls, each fenced by ``jax.block_until_ready``.
+
+    Returns ``(compile_seconds, milliseconds_per_call, compiled, out)``.
+    """
+    t0 = time.perf_counter()
+    compiled = jax.jit(fn).lower(*args).compile()
+    compile_s = time.perf_counter() - t0
+    out = jax.block_until_ready(compiled(*args))
+    ms = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        jax.block_until_ready(compiled(*args))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return compile_s, ms, compiled, out
 
 
 def chunked_cells(fn: Callable, n_chunks: int) -> Callable:
@@ -33,11 +84,9 @@ def chunked_cells(fn: Callable, n_chunks: int) -> Callable:
     For the very large fused quadrature kernels (2M+P3 at millions of
     cells) one flat fusion streams every shared node table across the
     whole batch at once; mapping over cell chunks bounds the working
-    set so table reads stay on-chip between consumers. Aim for ~16k
-    cells per chunk on v5e — the (64, 16384) f32 node tables are ~4 MB
-    each and the measured chunk sweep on the GL-16 fused tendency at 2M
-    cells peaks there (flat 1.90e7 -> 512k-cell chunks 2.18e7 ->
-    16k-cell chunks 3.13e7 pts/s; see docs/Performance.md). Identical
+    set. The callers use ~16k cells per chunk, where a (64, 16384) f32
+    node table is ~4 MB; whether that size suits the GPU is not yet
+    measured (a chunk that small may not fill every SM). Identical
     math and output; the leading axis of every input/output array leaf
     must be divisible by ``n_chunks``.
 
@@ -62,8 +111,8 @@ def chunked_cells(fn: Callable, n_chunks: int) -> Callable:
 @contextlib.contextmanager
 def profile_trace(log_dir: str):
     """Capture a ``jax.profiler`` device trace (XProf/TensorBoard format)
-    for everything run inside the context — the TPU-native replacement
-    for the reference's allocation-profile dump on budget breach
+    for everything run inside the context — the replacement for the
+    reference's allocation-profile dump on budget breach
     (``test/performance_tests.jl:52-67``; SURVEY.md §5)."""
     jax.profiler.start_trace(log_dir)
     try:

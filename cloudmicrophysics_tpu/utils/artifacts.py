@@ -1,6 +1,6 @@
 """External data-artifact resolution.
 
-TPU-native counterpart of the reference's lazy-artifact subsystem
+JAX counterpart of the reference's lazy-artifact subsystem
 (``/root/reference/src/ArtifactCalling.jl:17-19``): the reference pulls
 the AIDA ice-nucleation chamber dataset from a remote artifact store on
 first use. Here, artifacts are resolved from a local directory — the

@@ -1,6 +1,6 @@
 """Size-distribution tools (generalized gamma + exponential).
 
-TPU-native port of the reference ``src/DistributionTools.jl`` — closed-form
+JAX port of the reference ``src/DistributionTools.jl`` — closed-form
 quantiles / CDFs / moments used mostly by the 2-moment scheme and the P3
 integral bounds.
 """

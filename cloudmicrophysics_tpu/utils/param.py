@@ -1,4 +1,4 @@
-"""Parameter-struct machinery for the TPU-native cloud microphysics library.
+"""Parameter-struct machinery for the JAX cloud microphysics library.
 
 The reference library (CloudMicrophysics.jl) builds ``isbits`` parameter
 structs host-side once, precomputing expensive transcendentals (gamma
@@ -6,7 +6,7 @@ functions, Gauss-Legendre nodes) at construction, then ships them to the
 device by value (see ``/root/reference/src/parameters/Parameters.jl:62-74``
 and ``src/parameters/TerminalVelocity.jl:58-62``).
 
-The TPU-native equivalent is a frozen dataclass registered as a JAX pytree:
+The JAX equivalent is a frozen dataclass registered as a JAX pytree:
 
 * numeric fields are pytree *leaves* (plain Python floats) so parameter
   structs can be passed through ``jit`` / ``vmap`` / ``grad`` boundaries and

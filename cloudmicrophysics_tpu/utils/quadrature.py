@@ -1,6 +1,6 @@
 """Quadrature rules for the P3 size-distribution integrals.
 
-TPU-native port of the reference ``src/Quadrature.jl``:
+JAX port of the reference ``src/Quadrature.jl``:
 
 * :class:`ChebyshevGauss` — closed-form nodes/weights (reference
   ``src/Quadrature.jl:166-173``).
@@ -12,7 +12,7 @@ TPU-native port of the reference ``src/Quadrature.jl``:
 The rule objects are hashable frozen dataclasses used as *static* trace-time
 data: inside a jitted kernel the node/weight tables become XLA constants,
 and :func:`integrate` evaluates the integrand over a new leading node axis
-then contracts with a single fused dot — the natural TPU shape for the
+then contracts with a single fused dot — the natural array shape for the
 "quadrature = dot over node axis" pattern identified in SURVEY.md §2.1.
 """
 
@@ -74,8 +74,8 @@ class Tabulated:
     compile to XLA constants — perfect for the jit path, but Pallas
     requires array constants to be explicit kernel operands. ``Tabulated``
     stores the tables as pytree children: embedded in a parameter container
-    it flows through ``pallas_call`` as an input and the in-kernel
-    ``nodes_weights()`` returns the runtime (VMEM-resident) tables.
+    it flows through ``jit`` as an input and ``nodes_weights()`` returns
+    the runtime tables.
     """
 
     def __init__(self, n, y, w):
@@ -99,9 +99,8 @@ def tabulate(rule: QuadratureRule) -> Tabulated:
 
     Tables are stored node-leading with two trailing unit axes
     ``(n, 1, 1)`` so they broadcast directly against ``(ncol, nlev)``
-    tiles: Mosaic rejects reshapes *from* 1-D vectors (``(n,) ->
-    (n, 1, 1)`` is an unsupported shape cast) but handles >= 2-D sources,
-    so the unit axes are baked in host-side.
+    tiles; the unit axes are baked in host-side so no traced reshape is
+    needed.
     """
     y, w = rule.nodes_weights()
     return Tabulated(rule.n, y.reshape(-1, 1, 1), w.reshape(-1, 1, 1))
@@ -114,7 +113,7 @@ def build_quadrature(order: int) -> QuadratureRule:
     the ClimaAtmos production order 40), Chebyshev-Gauss otherwise
     (reference ``src/Quadrature.jl:272-278``; {4, 8} extend the
     reference's GL set downward — at the low node counts that make the
-    P3 collision kernel fast on TPU, GL's per-segment spectral
+    P3 collision kernel fast, GL's per-segment spectral
     convergence is what keeps the quadrature-ladder gates green, see
     tests/test_quadrature_ladder.py).
     """

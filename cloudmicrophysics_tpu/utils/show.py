@@ -1,6 +1,6 @@
 """Human-readable parameter-struct display.
 
-TPU-native counterpart of ``/root/reference/src/show.jl``: verbose /
+JAX counterpart of ``/root/reference/src/show.jl``: verbose /
 compact / parseable rendering of nested paramclass trees, with optional
 unit annotations. Diagnostics-as-physics (reflectivity, effective radius)
 live in ``ops.diagnostics``; this module is the struct-display subsystem.
@@ -17,7 +17,7 @@ __all__ = ["show_params", "field_units"]
 # reference annotates (grep `ShowMethods.field_units` in /root/reference/
 # src — AirProperties.jl:20, Microphysics1M.jl:55,78,143,176,
 # MicrophysicsP3.jl:326-331, P3_particle_properties.jl:60-62) plus the
-# TPU port's other major containers; extend freely.
+# JAX port's other major containers; extend freely.
 FIELD_UNITS = {
     ("AirProperties", "K_therm"): "W/m/K",
     ("AirProperties", "D_vapor"): "m^2/s",

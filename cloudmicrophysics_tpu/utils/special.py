@@ -1,6 +1,6 @@
 """Core special-function numerics (L0).
 
-TPU-native implementations of the fixed-iteration incomplete-gamma kernels
+JAX implementations of the fixed-iteration incomplete-gamma kernels
 and small-number utilities from the reference's ``src/Utilities.jl``:
 
 * :func:`gamma_inc` — fixed-iteration regularized incomplete gamma
@@ -14,14 +14,14 @@ and small-number utilities from the reference's ``src/Utilities.jl``:
 * :func:`logsumexp` shift-by-max over a stacked axis
   (reference ``src/Utilities.jl:343-412``).
 
-Design notes (TPU-first):
+Design notes:
 
 * All loops are **static trip count** ``lax.fori_loop`` — the reference
   fixes iteration counts for warp convergence
   (20 for f32 / 30 for f64); XLA requires static trip counts anyway.
 * Both the series and continued-fraction branches are evaluated and
   selected with ``jnp.where`` (array semantics — no per-element
-  branching exists on the VPU). Dead-branch inputs are sanitized so the
+  branching in array code). Dead-branch inputs are sanitized so the
   discarded branch stays finite for ``jax.grad``.
 * Analytic derivative rules via ``jax.custom_jvp``: the x-derivative is
   ``∂P/∂x = x^{a-1} e^{-x} / Γ(a)``; the a-derivative is *not*
@@ -31,8 +31,6 @@ Design notes (TPU-first):
 
 from __future__ import annotations
 
-import contextlib
-import contextvars
 import functools
 import math
 
@@ -55,7 +53,6 @@ __all__ = [
     "lgamma",
     "gamma",
     "logsumexp",
-    "raw_special_functions",
     "sgs_weight_function",
     "regularised_ratio",
     "rime_mass_fraction",
@@ -125,19 +122,17 @@ def fac(n: int) -> int:
 
 
 # ---------------------------------------------------------------------------
-# Mosaic-safe elementwise transcendentals
+# Elementwise transcendentals built from exp/log/log1p/tanh/pow
 #
-# Pallas TPU lowering (Mosaic) implements exp/log/log1p/tanh/pow/sqrt but
-# not expm1/atanh/cbrt/lgamma (probed on v5e). The versions below are built
-# from the supported set so every op in this library lowers into a Pallas
-# kernel unchanged; the XLA jit path uses the same definitions, keeping the
-# two paths numerically identical.
+# Portable jnp formulations of expm1, atanh, cbrt and lgamma. They date
+# from a compiler that lacked the library primitives; tests pin their
+# numbers, so replacing them with jnp.expm1 / jnp.cbrt / lax.lgamma is a
+# change of results that needs its own accuracy and speed check.
 # ---------------------------------------------------------------------------
 
 def expm1(x):
     """``exp(x) - 1`` stable at 0, via ``tanh``: with ``t = tanh(x/2)``,
-    ``e^x - 1 = 2t / (1 - t)`` (exact identity; tanh is a Mosaic
-    primitive). Falls back to ``exp(x) - 1`` for |x| >= 1 where
+    ``e^x - 1 = 2t / (1 - t)`` (exact identity). Falls back to ``exp(x) - 1`` for |x| >= 1 where
     cancellation is gone and the identity's ``1 - t`` would underflow."""
     x = jnp.asarray(x, float_dtype(x))
     t = jnp.tanh(x / 2)
@@ -147,13 +142,12 @@ def expm1(x):
 
 
 def atanh(x):
-    """``atanh(x) = (log1p(x) - log1p(-x)) / 2`` (log1p is a Mosaic
-    primitive)."""
+    """``atanh(x) = (log1p(x) - log1p(-x)) / 2``."""
     return (jnp.log1p(x) - jnp.log1p(-x)) / 2
 
 
 def cbrt(x):
-    """Signed cube root via ``pow`` (Mosaic primitive)."""
+    """Signed cube root via ``pow``."""
     x = jnp.asarray(x, float_dtype(x))
     return jnp.sign(x) * jnp.abs(x) ** (1.0 / 3.0)
 
@@ -177,7 +171,7 @@ _HALF_LOG_2PI = 0.5 * math.log(2 * math.pi)
 
 
 def _lgamma_pos(z):
-    """Mosaic-safe ``log Gamma(z)`` for ``z > 0`` (Lanczos, abs err
+    """``log Gamma(z)`` for ``z > 0`` (Lanczos, abs err
     ~1e-13 in f64). Dead-branch-safe: z <= 0 is sanitized, not NaN."""
     z = jnp.asarray(z, float_dtype(z))
     z = jnp.maximum(z, jnp.asarray(jnp.finfo(z.dtype).tiny, z.dtype)) - 1
@@ -216,20 +210,22 @@ def _maxiters(dt) -> int:
 
 
 def loop_unroll() -> bool:
-    """Whether fixed-trip solver loops should fully unroll.
+    """Whether fixed-trip solver loops fully unroll: on the GPU only.
 
     Unrolling is numerics-identical (same operations, same order) but
-    changes the compiled form: on TPU the rolled loops round-trip their
-    full-size array carries through HBM every iteration — unrolling fuses
-    the whole solve into one kernel with carries in registers (measured
-    1.3-8x on the P3 collision/crossover kernels, v5e). On CPU the same
-    unrolling inflates the LLVM-JIT'd program enough to crash XLA:CPU on
-    the biggest P3 graphs (known code-memory exhaustion), so CPU keeps the
-    rolled form. Backend-conditional COMPILATION, identical MATH.
+    changes the compiled form. On the GPU a rolled loop is a device-side
+    while loop whose full-size array carries go through device memory on
+    every iteration; unrolled, the solve fuses with its carries in
+    registers. Measured on an H100 (700 W): the GL-16 fused 2M+P3
+    tendency at 2,097,152 cells ran 403 ms rolled and 92 ms unrolled
+    (compile 15 s -> 21 s); the GL-8 P3 column step at 16,384 x 128 ran
+    2490 ms either way, but compiled in 157 s instead of 24 s. On the CPU
+    the unrolled programs grow enough to crash XLA:CPU on the biggest P3
+    graphs (code-memory exhaustion), so the CPU keeps the rolled form.
     """
     import jax
 
-    return jax.default_backend() == "tpu"
+    return jax.default_backend() == "gpu"
 
 
 def _gamma_inc_core(a, x, lgamma_a):
@@ -258,7 +254,7 @@ def _gamma_inc_core(a, x, lgamma_a):
         return term, sum_p + term
 
     term0 = one / a_safe
-    # see loop_unroll: register-resident carries on TPU, rolled on CPU
+    # see loop_unroll: unrolled on the GPU, rolled on the CPU
     _, sum_p = lax.fori_loop(1, n + 1, series_body, (term0, term0),
                              unroll=loop_unroll())
     P_series = jnp.clip(factor * sum_p, zero, one)
@@ -307,34 +303,6 @@ def _gamma_inc_impl(a, x):
     return _gamma_inc_core(a, x, _lgamma_pos(a))
 
 
-# Pallas/Mosaic escape hatch: Mosaic cannot lower custom_jvp_call with
-# symbolic_zeros, and Pallas kernels are forward-only (differentiating
-# through a pallas_call needs explicit custom rules anyway), so kernel
-# wrappers trace with the raw implementations instead.
-_RAW_SPECIAL = contextvars.ContextVar("cmt_raw_special", default=False)
-
-
-@contextlib.contextmanager
-def raw_special_functions():
-    """Trace special functions without their ``custom_jvp`` wrappers.
-
-    Also flips the library into "VMEM-lean" mode: nested quadratures loop
-    over outer nodes (``lax.fori_loop``) instead of materializing the full
-    (n_outer, n_inner, tile) tensors, keeping Mosaic's scoped-VMEM usage
-    bounded. Pallas kernel wrappers enter this context around tracing.
-    """
-    token = _RAW_SPECIAL.set(True)
-    try:
-        yield
-    finally:
-        _RAW_SPECIAL.reset(token)
-
-
-def in_pallas_trace() -> bool:
-    """True while tracing inside :func:`raw_special_functions`."""
-    return _RAW_SPECIAL.get()
-
-
 @jax.custom_jvp
 def _gamma_inc_cjvp(a, x):
     return _gamma_inc_impl(a, x)
@@ -348,8 +316,6 @@ def gamma_inc(a, x):
     ``src/Utilities.jl:93-144``. Differentiable in ``x`` (analytic rule);
     a nonzero tangent in ``a`` produces NaN (unsupported, by design).
     """
-    if _RAW_SPECIAL.get():
-        return _gamma_inc_impl(a, x)
     return _gamma_inc_cjvp(a, x)
 
 
@@ -400,8 +366,7 @@ _HALLEY_ITERS = 15  # reference src/Utilities.jl:225
 
 def _ndtri_acklam(p):
     """Standard-normal inverse CDF, Acklam's rational approximation
-    (max |rel err| ~1.15e-9) — pure arithmetic + log/sqrt, so it lowers
-    on Mosaic (erfinv does not). Central + two tail branches, evaluated
+    (max |rel err| ~1.15e-9) — pure arithmetic + log/sqrt. Central + two tail branches, evaluated
     branchlessly."""
     dt = p.dtype
     a_ = (-3.969683028665376e+01, 2.209460984245205e+02,
@@ -487,8 +452,7 @@ def _gamma_inc_inv_impl(a, p, q, n_iters=_HALLEY_ITERS):
 
     use_q = p > 0.5
 
-    # NOTE: the convergence-freeze mask is carried as 0/1 float, not bool —
-    # Mosaic fails to legalize scf.for with i1 vector carries.
+    # the convergence-freeze mask is carried as 0/1 float
     def body(_, carry):
         x, done = carry
         P, Q = _gamma_inc_core(a, x, lgamma_a)
@@ -541,8 +505,6 @@ def gamma_inc_inv(a, p, q, n_iters=_HALLEY_ITERS):
     quadrature truncation error at a ~4x saving over the full 15. The
     JVP (inverse function theorem) is exact regardless of ``n_iters``.
     """
-    if _RAW_SPECIAL.get():
-        return _gamma_inc_inv_impl(a, p, q, n_iters)
     return _gamma_inc_inv_cjvp(a, p, q, n_iters)
 
 

@@ -28,8 +28,8 @@ def main():
     ap.add_argument("--order", type=int, default=8)
     ap.add_argument("--col-chunks", type=int, default=None,
                     help="evaluate the step over N ncol chunks "
-                    "(perf.chunked_cells; aim for ~16k grid points per "
-                    "chunk — 2.2e7 -> 3.1e7 pts/s at 16384x128 on v5e)")
+                    "(perf.chunked_cells; the benchmarks use ~16k grid "
+                    "points per chunk)")
     cli = ap.parse_args()
 
     import jax

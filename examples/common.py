@@ -15,7 +15,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import jax
 
 # Examples run on CPU by default (fast compile, full-precision f64
-# transcendentals); set CMT_PLATFORM=tpu to run on the accelerator.
+# transcendentals); set CMT_PLATFORM=gpu to run on the GPU.
 jax.config.update("jax_platforms", os.environ.get("CMT_PLATFORM", "cpu"))
 jax.config.update("jax_enable_x64", True)
 

@@ -184,7 +184,7 @@ class TestEmulatorGP:
 
     def test_trees_family_and_api(self):
         # THIRD regressor family: gradient-boosted oblivious trees — the
-        # TPU-native analog of the reference's EvoTree machine
+        # JAX analog of the reference's EvoTree machine
         # (ext/EmulatorModelsExt.jl:32-67); same ~0.1-rmse harness gate
         # as test/aerosol_activation_emulators.jl:10-74
         from cloudmicrophysics_tpu.models import emulator as EM

@@ -1,27 +1,41 @@
-"""Pallas kernel tests (CPU interpret mode).
+"""Triton-route column kernels: interpret-mode parity on the CPU, and the
+launch shape, lowering and dispatch rules around them.
 
-The kernels re-invoke the same jnp physics on VMEM tiles, so the test
-contract is bit-level-close agreement with the XLA-fused reference path.
+The kernels apply the same jnp physics to tiles of whole columns, and
+take the sedimentation inflow from a second load shifted one level up,
+so the contract is close agreement with XLA's fusion of the plain step.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cloudmicrophysics_tpu.kernels import step_column_1m_pallas
-from cloudmicrophysics_tpu.models.column import ColumnState, step_column_1m
+from cloudmicrophysics_tpu.kernels import (
+    step_column_1m_triton,
+    step_column_2m_triton,
+)
+from cloudmicrophysics_tpu.kernels._column import _folded, tile_columns
+from cloudmicrophysics_tpu.models.column import (
+    ColumnState,
+    ColumnState2M,
+    step_column_1m,
+    step_column_2m,
+)
 from cloudmicrophysics_tpu.parameters import (
     ThermodynamicsParameters,
     microphysics_1m_params,
+    microphysics_2m_params,
     terminal_velocity_params,
 )
 
 MP = microphysics_1m_params()
+MP2 = microphysics_2m_params()
 TPS = ThermodynamicsParameters()
 TV = terminal_velocity_params()
 
 
-def _state(ncol, nlev, dtype):
+def _state(ncol, nlev, dtype=jnp.float32):
     rng = np.random.default_rng(7)
     shape = (ncol, nlev)
     return ColumnState(
@@ -37,185 +51,125 @@ def _state(ncol, nlev, dtype):
     )
 
 
-class TestColumn1MPallas:
+def _state_2m(ncol, nlev):
+    rng = np.random.default_rng(3)
+    f = lambda v: jnp.asarray(v * (1 + 0.5 * rng.random((ncol, nlev))),
+                              jnp.float32)
+    return ColumnState2M(rho=f(1.1), T=f(288.0), q_tot=f(6e-3),
+                         q_lcl=f(1e-3), n_lcl=f(9e7), q_rai=f(5e-4),
+                         n_rai=f(9e5))
+
+
+def _assert_close(got, want, rtol, atol):
+    for name in want._fields:
+        np.testing.assert_allclose(
+            np.asarray(getattr(got, name)), np.asarray(getattr(want, name)),
+            rtol=rtol, atol=atol, err_msg=name)
+
+
+class TestColumn1MTriton:
+    @pytest.mark.parametrize("sediment_cloud", [True, False])
+    def test_matches_xla_fused_path(self, sediment_cloud):
+        # two tiles of 32 columns: the shifted load crosses tile edges
+        state = _state(64, 16)
+        ref = jax.jit(lambda s: step_column_1m(
+            s, MP, TPS, TV, 1.0, 100.0, sediment_cloud=sediment_cloud))(state)
+        out = step_column_1m_triton(state, MP, TPS, TV, 1.0, 100.0,
+                                    sediment_cloud=sediment_cloud,
+                                    interpret=True)
+        _assert_close(out, ref, rtol=2e-5, atol=2e-9)
+
+    def test_tiles_are_independent(self):
+        # one tile of 32 columns or the same columns as half of a 64-column
+        # run: columns never see each other
+        state = _state(64, 16)
+        a = step_column_1m_triton(state, MP, TPS, TV, 1.0, 100.0,
+                                  interpret=True)
+        b = step_column_1m_triton(
+            jax.tree_util.tree_map(lambda x: x[32:], state),
+            MP, TPS, TV, 1.0, 100.0, interpret=True)
+        _assert_close(b, jax.tree_util.tree_map(lambda x: x[32:], a),
+                      rtol=1e-6, atol=0.0)
+
+    def test_lowers_for_the_gpu(self):
+        # the Triton IR is built here; only its compilation needs a GPU
+        low = jax.jit(lambda s: step_column_1m_triton(
+            s, MP, TPS, TV, 1.0, 100.0)).trace(_state(8, 64)).lower(
+                lowering_platforms=("cuda",))
+        assert "xla.gpu.triton" in low.as_text()
+
+    def test_needs_interpret_mode_off_the_gpu(self):
+        with pytest.raises(ValueError, match="interpret"):
+            step_column_1m_triton(_state(8, 16), MP, TPS, TV, 1.0, 100.0)
+
+
+class TestColumn2MTriton:
     def test_matches_xla_fused_path(self):
-        state = _state(64, 16, jnp.float32)
-        ref = step_column_1m(state, MP, TPS, TV, 1.0, 100.0)
-        out = step_column_1m_pallas(state, MP, TPS, TV, 1.0, 100.0,
-                                    block_cols=16, interpret=True)
-        for name in ref._fields:
-            np.testing.assert_allclose(
-                np.asarray(getattr(out, name)),
-                np.asarray(getattr(ref, name)), rtol=2e-5, atol=2e-9,
-                err_msg=name)
+        state = _state_2m(64, 16)
+        ref = jax.jit(lambda s: step_column_2m(s, MP2, TPS, 1.0, 100.0))(
+            state)
+        out = step_column_2m_triton(state, MP2, TPS, 1.0, 100.0,
+                                    interpret=True)
+        _assert_close(out, ref, rtol=2e-5, atol=1e-8)
 
-    def test_block_independence(self):
-        # different tilings give the same answer (columns are independent;
-        # the level axis stays whole). ULP-level tolerance, not bitwise:
-        # XLA:CPU's vectorized exp/log lowering may round differently for
-        # different tile shapes (SIMD width / tail handling), and the fused
-        # step is exp/log-heavy by design.
-        state = _state(32, 8, jnp.float32)
-        a = step_column_1m_pallas(state, MP, TPS, TV, 1.0, 100.0,
-                                  block_cols=32, interpret=True)
-        b = step_column_1m_pallas(state, MP, TPS, TV, 1.0, 100.0,
-                                  block_cols=8, interpret=True)
-        for name in a._fields:
-            np.testing.assert_allclose(
-                np.asarray(getattr(a, name)), np.asarray(getattr(b, name)),
-                rtol=1e-6, atol=0.0, err_msg=name)
+    def test_lowers_for_the_gpu(self):
+        low = jax.jit(lambda s: step_column_2m_triton(
+            s, MP2, TPS, 1.0, 100.0)).trace(_state_2m(8, 64)).lower(
+                lowering_platforms=("cuda",))
+        assert "xla.gpu.triton" in low.as_text()
 
-    def test_bad_tiling_raises(self):
-        state = _state(20, 8, jnp.float32)
-        with pytest.raises(ValueError, match="not a multiple"):
-            step_column_1m_pallas(state, MP, TPS, TV, 1.0, 100.0,
-                                  block_cols=16, interpret=True)
+    def test_impl_pallas_raises_off_the_gpu(self):
+        with pytest.raises(ValueError, match="compiles for the GPU"):
+            step_column_2m(_state_2m(8, 16), MP2, TPS, 1.0, 100.0,
+                           impl="pallas")
 
-    def test_q_tot_affine_matches_prescaled_input(self):
-        # in-kernel q_tot affine == scaling the field before the call
-        state = _state(16, 8, jnp.float32)
-        a = step_column_1m_pallas(
-            state._replace(q_tot=state.q_tot * 1.01 + 2e-9),
-            MP, TPS, TV, 1.0, 100.0, block_cols=8, interpret=True)
-        b = step_column_1m_pallas(
-            state, MP, TPS, TV, 1.0, 100.0, block_cols=8, interpret=True,
-            q_tot_affine=(1.01, 2e-9))
-        for name in a._fields:
-            np.testing.assert_allclose(
-                np.asarray(getattr(a, name)), np.asarray(getattr(b, name)),
-                rtol=1e-6, err_msg=name)
-
-    def test_packed_state_matches_xla(self):
-        from cloudmicrophysics_tpu.kernels.column1m import (
-            pack_state, step_column_1m_pallas_packed, unpack_state)
-
-        state = _state(16, 8, jnp.float32)
-        ref = step_column_1m(state, MP, TPS, TV, 1.0, 100.0)
-        packed = pack_state(state)
-        rt = unpack_state(packed)
-        for name in ref._fields:
-            np.testing.assert_array_equal(
-                np.asarray(getattr(state, name)),
-                np.asarray(getattr(rt, name)), err_msg=name)
-        out = unpack_state(step_column_1m_pallas_packed(
-            packed, MP, TPS, TV, 1.0, 100.0, block_cols=8, interpret=True))
-        for name in ref._fields:
-            np.testing.assert_allclose(
-                np.asarray(getattr(ref, name)),
-                np.asarray(getattr(out, name)), rtol=2e-5, atol=2e-9,
-                err_msg=name)
+    def test_unknown_impl_raises(self):
+        with pytest.raises(ValueError, match="unknown impl"):
+            step_column_2m(_state_2m(8, 16), MP2, TPS, 1.0, 100.0,
+                           impl="mosaic")
 
 
-class TestColumn2MPallas:
-    @staticmethod
-    def _state():
-        from cloudmicrophysics_tpu.models.column import ColumnState2M
+class TestLaunchShape:
+    @pytest.mark.parametrize("ncol, nlev, block", [
+        (524288, 128, 4), (1000, 128, 4), (6, 128, 2), (7, 128, 1),
+        (64, 16, 32), (3, 1024, 1)])
+    def test_tile_columns(self, ncol, nlev, block):
+        assert tile_columns(ncol, nlev) == block
 
-        f = lambda v: jnp.full((32, 8), v, jnp.float32)
-        return ColumnState2M(rho=f(1.1), T=f(288.0), q_tot=f(6e-3),
-                             q_lcl=f(1e-3), n_lcl=f(9e7), q_rai=f(5e-4),
-                             n_rai=f(9e5))
-
-    def test_matches_xla_fused_path(self):
-        from cloudmicrophysics_tpu.kernels import step_column_2m_pallas
-        from cloudmicrophysics_tpu.models.column import step_column_2m
-        from cloudmicrophysics_tpu.parameters import microphysics_2m_params
-
-        mp = microphysics_2m_params()
-        st = self._state()
-        ref = step_column_2m(st, mp, TPS, 1.0, 100.0)
-        out = step_column_2m_pallas(st, mp, TPS, 1.0, 100.0,
-                                    block_cols=8, interpret=True)
-        for name in ref._fields:
-            np.testing.assert_allclose(
-                np.asarray(getattr(out, name)),
-                np.asarray(getattr(ref, name)), rtol=2e-5, atol=1e-8,
-                err_msg=name)
-
-    def test_packed_state_matches_xla(self):
-        from cloudmicrophysics_tpu.kernels.column2m import (
-            pack_state_2m,
-            step_column_2m_pallas_packed,
-            unpack_state_2m,
-        )
-        from cloudmicrophysics_tpu.models.column import step_column_2m
-        from cloudmicrophysics_tpu.parameters import microphysics_2m_params
-
-        mp = microphysics_2m_params()
-        st = self._state()
-        packed = pack_state_2m(st)
-        rt = unpack_state_2m(packed)
-        for name in st._fields:
-            np.testing.assert_array_equal(
-                np.asarray(getattr(st, name)),
-                np.asarray(getattr(rt, name)), err_msg=name)
-        # in-kernel q_tot affine == pre-scaling the field
-        ref = step_column_2m(st._replace(q_tot=st.q_tot * 1.01 + 2e-9),
-                             mp, TPS, 1.0, 100.0)
-        out = unpack_state_2m(step_column_2m_pallas_packed(
-            packed, mp, TPS, 1.0, 100.0, block_cols=8, interpret=True,
-            q_tot_affine=(1.01, 2e-9)))
-        for name in ref._fields:
-            np.testing.assert_allclose(
-                np.asarray(getattr(out, name)),
-                np.asarray(getattr(ref, name)), rtol=2e-5, atol=1e-8,
-                err_msg=name)
+    def test_levels_must_be_a_power_of_two(self):
+        with pytest.raises(ValueError, match="power of two"):
+            tile_columns(64, 100)
 
 
-class TestColumnP3Pallas:
-    # GL-4 + an (8, 4) tile: parity between the Pallas and XLA paths
-    # holds at any order, and interpret-mode cost scales with
-    # (cells x quadrature nodes^2) — order 16 at (16, 4) took ~290 s of
-    # the suite's budget for identical coverage
-    ORDER = 4
+class TestFolded:
+    def test_same_values_and_no_constant_only_operations(self):
+        c = jnp.float32(3.0)
 
-    def _state(self):
-        from cloudmicrophysics_tpu.models.column import ColumnStateP3
+        def fn(x):
+            k = -jnp.log(c) * 2     # constant-only: folded at trace time
+            return jnp.exp(-x) * k
 
-        f = lambda v: jnp.full((8, 4), v, jnp.float32)
-        return ColumnStateP3(
-            rho=f(1.1), T=f(263.0), q_tot=f(6e-3), q_lcl=f(1e-3),
-            n_lcl=f(9e7), q_rai=f(5e-4), n_rai=f(9e5), q_ice=f(5e-4),
-            n_ice=f(1e5), q_rim=f(1e-4), b_rim=f(2e-7))
+        x = jnp.linspace(0.0, 1.0, 8, dtype=jnp.float32)
+        np.testing.assert_allclose(np.asarray(_folded(fn)(x)),
+                                   np.asarray(fn(x)), rtol=1e-7)
+        jaxpr = jax.make_jaxpr(_folded(fn))(x).jaxpr
+        assert [e.primitive.name for e in jaxpr.eqns] == ["neg", "exp", "mul"]
 
-    def test_matches_xla_fused_path(self):
-        from cloudmicrophysics_tpu.kernels import step_column_p3_pallas
-        from cloudmicrophysics_tpu.models.column import step_column_p3
-        from cloudmicrophysics_tpu.parameters import microphysics_2m_params
 
-        mp = microphysics_2m_params(with_ice=True,
-                                    quadrature_order=self.ORDER)
-        st = self._state()
-        ref, loglam_ref = step_column_p3(st, mp, TPS, 1.0, 100.0)
-        out, loglam = step_column_p3_pallas(st, mp, TPS, 1.0, 100.0,
-                                            block_cols=4, interpret=True)
-        np.testing.assert_allclose(np.asarray(loglam),
-                                   np.asarray(loglam_ref), rtol=2e-5)
-        for name in ref._fields:
-            np.testing.assert_allclose(
-                np.asarray(getattr(out, name)),
-                np.asarray(getattr(ref, name)), rtol=3e-5, atol=1e-10,
-                err_msg=name)
+@pytest.mark.gpu
+class TestOnTheGpu:
+    @pytest.fixture(autouse=True)
+    def _gpu(self):
+        if jax.devices()[0].platform != "gpu":
+            pytest.skip("needs a GPU")
 
-    @pytest.mark.slow
-    def test_warm_start_matches(self):
-        # slow tier: a second full interpret-mode trace of the P3 kernel
-        # — the cold-start parity test above already covers the kernel;
-        # this adds only the warm-start operand path
-        from cloudmicrophysics_tpu.kernels import step_column_p3_pallas
-        from cloudmicrophysics_tpu.models.column import step_column_p3
-        from cloudmicrophysics_tpu.parameters import microphysics_2m_params
-
-        mp = microphysics_2m_params(with_ice=True,
-                                    quadrature_order=self.ORDER)
-        st = self._state()
-        st1, loglam1 = step_column_p3(st, mp, TPS, 1.0, 100.0)
-        ref, _ = step_column_p3(st1, mp, TPS, 1.0, 100.0, loglam1)
-        out, _ = step_column_p3_pallas(st1, mp, TPS, 1.0, 100.0,
-                                       loglambda_guess=loglam1,
-                                       block_cols=8, interpret=True)
-        for name in ref._fields:
-            np.testing.assert_allclose(
-                np.asarray(getattr(out, name)),
-                np.asarray(getattr(ref, name)), rtol=3e-5, atol=1e-10,
-                err_msg=name)
+    def test_kernels_match_xla(self):
+        state = _state(256, 128)
+        _assert_close(
+            step_column_1m_triton(state, MP, TPS, TV, 1.0, 100.0),
+            jax.jit(lambda s: step_column_1m(s, MP, TPS, TV, 1.0, 100.0))(
+                state), rtol=2e-5, atol=2e-9)
+        s2 = _state_2m(256, 128)
+        _assert_close(
+            step_column_2m(s2, MP2, TPS, 1.0, 100.0, impl="pallas"),
+            step_column_2m(s2, MP2, TPS, 1.0, 100.0), rtol=2e-5, atol=1e-8)

@@ -8,8 +8,8 @@ gate), and (c) no dtype promotion (analog of the FT return-type check).
 Budgets are CPU wall times on a 4096-point float32 batch with ~15-30x
 headroom over measured dev-machine times — they catch catastrophic
 regressions (eager fallback, per-element dispatch, accidental f64
-promotion), not few-percent drift. The TPU throughput trend is tracked by
-bench.py / benchmarks/bench_suite.py instead.
+promotion), not few-percent drift. Device throughput is measured on the
+GPU by bench.py / benchmarks/bench_suite.py instead.
 """
 
 import jax

@@ -80,7 +80,7 @@ def baseline():
 
 
 # The reference's CG rungs (50/25/15, bulk_tendencies_quadrature_tests.jl)
-# plus the TPU production orders, which build_quadrature maps to
+# plus the production orders, which build_quadrature maps to
 # Gauss-Legendre. Both GL rungs sit inside the reference's own n=25
 # acceptance (5e-2). Round-5 measured maxima over the 10-state sweep:
 # GL-16 1.30e-2, GL-8 1.90e-2 — dn_ice-dominated (the ice

@@ -115,7 +115,7 @@ class TestGammaInc:
         assert np.isfinite(g) and g != 0
 
     def test_ndtri_acklam_vs_scipy(self):
-        # the Mosaic-safe rational normal-inverse-CDF behind the
+        # the rational normal-inverse-CDF behind the
         # Wilson-Hilferty upper-tail start (Acklam: |rel err| ~1.15e-9)
         import scipy.special as sps
 

@@ -248,8 +248,9 @@ class TestColumnModel:
 class TestGraftEntry:
     def test_entry_compiles(self):
         import sys
+        from pathlib import Path
 
-        sys.path.insert(0, "/root/repo")
+        sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
         import __graft_entry__ as GE
 
         fn, args = GE.entry()
@@ -261,23 +262,25 @@ class TestGraftEntry:
     @pytest.mark.slow
     def test_dryrun_multichip(self):
         # Slow tier: the driver itself runs dryrun_multichip on the
-        # 8-device virtual mesh every round (MULTICHIP_r0N.json), so the
-        # default tier does not pay its ~35 s again.
+        # 8-device virtual mesh, so the default tier does not pay its
+        # ~35 s again.
         # Run in a fresh interpreter, exactly as the driver does: compiling
         # the 8-way-partitioned P3 program on top of a long-lived pytest
         # process has hit XLA:CPU compiler stack exhaustion.
+        import os
         import subprocess
         import sys
+        from pathlib import Path
 
+        repo = str(Path(__file__).resolve().parents[1])
         code = (
-            "import sys; sys.path.insert(0, '/root/repo');"
+            f"import sys; sys.path.insert(0, {repo!r});"
             "import __graft_entry__ as GE; GE.dryrun_multichip(8)"
         )
         env = dict(
+            os.environ,
             JAX_PLATFORMS="cpu",
             XLA_FLAGS="--xla_force_host_platform_device_count=8",
-            PATH="/usr/bin:/bin",
-            HOME="/root",
         )
         proc = subprocess.run(
             [sys.executable, "-c", code], env=env,
